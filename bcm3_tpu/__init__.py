@@ -1,4 +1,4 @@
-"""bcm3-tpu: a TPU-native Bayesian inference framework.
+"""bcm3_tpu: Bayesian inference for simulation-based likelihoods in JAX.
 
 A from-scratch re-expression of the capabilities of BCM3 (reference:
 NKI-CCB/bcm3, C++/R) as an idiomatic JAX/XLA framework:

@@ -1,6 +1,6 @@
 """Posterior analysis: the Python equivalent of the reference R layer.
 
-TPU-native counterpart of the reference's R analysis scripts
+JAX counterpart of the reference's R analysis scripts
 (reference: R/load.r, R/stats.r, R/plots_functions.r). `load_results`
 (bcm3_tpu.io.output) reads the sample store; this module provides the
 posterior summaries `R/stats.r` computes — per-variable mean / sd /
@@ -16,7 +16,6 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from bcm3_tpu.io.output import load_results
 from bcm3_tpu.stats.summary import acf as _acf
 
 
@@ -159,6 +158,8 @@ def marginal_likelihood(
 def load_and_summarize(filename: str) -> Dict:
     """One-call analysis: load an output.nc and compute everything
     (python-side equivalent of bcm3.load.results + variable_summary)."""
+    from bcm3_tpu.io.output import load_results  # needs h5py
+
     results = load_results(filename)
     return {
         "results": results,

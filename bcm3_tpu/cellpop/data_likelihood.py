@@ -1,6 +1,6 @@
 """Cell-population data likelihoods.
 
-TPU-native equivalent of the reference data-likelihood hierarchy
+JAX equivalent of the reference data-likelihood hierarchy
 (reference: src/cellpop/DataLikelihoodBase.cpp,
 DataLikelihoodTimePoints.cpp, DataLikelihoodTimeCourse.cpp,
 DataLikelihoodTimeCoursePopulationAverage.cpp,
@@ -158,7 +158,7 @@ def batched_hungarian(cost_logp, obs_valid, sim_valid):
     callback runs sequentially per batch member."""
 
     # callback result dtype must be representable under the current x64
-    # mode (a hard f64 here breaks TPU/f32 sessions); the matching is
+    # mode (a hard f64 here breaks f32 sessions); the matching is
     # still solved in f64 on the host either way
     out_dtype = cost_logp.dtype
 

@@ -1,6 +1,6 @@
 """Batched heterogeneous cell-population simulator.
 
-TPU-native re-design of the reference cell-population engine
+JAX re-design of the reference cell-population engine
 (reference: src/cellpop/Experiment.cpp:635-846, Cell.cpp,
 CellPopulation.cpp). The reference integrates one CVODE instance per
 cell on a dynamically growing work queue serviced by auxiliary threads
@@ -11,7 +11,7 @@ slot array and the whole simulation is one jit-compiled computation:
 - `max_generations` rounds; in each round every slot integrates in
   lockstep through the vmapped DP5 or Rosenbrock solver over a shared
   cell-time grid (inactive slots integrate a masked dummy — the cost
-  of a round is one batched solve, which is exactly what fills a TPU);
+  of a round is one batched solve, which is what fills a device);
 - events (DNA replication start/finish, PCNA-gfp increase, nuclear
   envelope breakdown, anaphase onset, division, death) are detected as
   first grid-crossings with linear-interpolated crossing times — the
@@ -94,7 +94,7 @@ class PopulationConfig:
     max_steps: int = 10000
     # static per-segment adaptive-step budget: lowers the integrator to a
     # fixed-trip fori_loop (ode/dp5.py:_integrate_segment_fori) instead of
-    # a masked while_loop — the fast shape for batched TPU execution
+    # a masked while_loop
     solver_trips: int | None = None
     simulate_past_chromatid_separation_time: float = 0.0
     max_sobol_index: int = 0  # 0 = no variability iterator
@@ -199,9 +199,9 @@ def simulate_population(
 
     def integrate_one(y0, params, cy, creation):
         if cfg.solver_trips:
-            # whole-trajectory step budget in a static fori_loop — the
-            # fast lowering for batched TPU execution (stiff transients
-            # concentrate steps in few segments, so the budget is global)
+            # whole-trajectory step budget in a static fori_loop (stiff
+            # transients concentrate steps in few segments, so the budget
+            # is global)
             if cfg.solver == "DP5":
                 from bcm3_tpu.ode.dp5 import solve_at_times_budget
 

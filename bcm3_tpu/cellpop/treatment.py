@@ -1,6 +1,6 @@
 """Treatment trajectories: time-varying drug inputs to constant species.
 
-TPU-native equivalent of the reference trajectory classes
+JAX equivalent of the reference trajectory classes
 (reference: src/cellpop/TreatmentTrajectory.cpp,
 TreatmentTrajectoryFromData.cpp, TreatmentTrajectoryPulses.cpp). The
 reference informs the solver of upcoming discontinuities via callbacks;

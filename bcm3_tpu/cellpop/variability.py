@@ -1,6 +1,6 @@
 """Cell-to-cell variability descriptions driven by a Sobol sequence.
 
-TPU-native equivalent of the reference variability machinery
+JAX equivalent of the reference variability machinery
 (reference: src/cellpop/VariabilityDescription.cpp,
 VariabilityDescriptionVariable.cpp, VariabilityPseudoRandomIterator.cpp).
 The reference draws a shared Sobol sequence (100 x initial cells
@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 from scipy.stats import norm, qmc
 
@@ -199,7 +200,7 @@ class VariabilityDescription:
                         cv = cov_vals[cov_ix]
                         entry = entry * jnp.where(k == j, jnp.cos(cv), jnp.sin(cv))
                 L = L.at[i, j].set(entry)
-        return L @ unit_normals
+        return jnp.matmul(L, unit_normals, precision=lax.Precision.HIGHEST)
 
 
 def sobol_unit_normals(total_dims: int, initial_cells: int) -> np.ndarray:

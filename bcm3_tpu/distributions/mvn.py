@@ -1,10 +1,9 @@
 """Multivariate normal and Student-t densities in JAX.
 
-TPU-native equivalent of the reference implementations
+JAX equivalent of the reference implementations
 (reference: src/stats/mvn.h:5-8, src/stats/mvt.h:5-8). Densities are
 computed from a Cholesky factor so they can be evaluated for many points
-with one triangular solve batched over the trailing axis, which maps onto
-the MXU for large batches.
+with one triangular solve batched over the trailing axis.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ def _solve_lower_batched(chol, dx):
     """L^{-1} dx for dx of shape (..., d) against a single (d, d) factor.
 
     Implemented as one matrix triangular solve over the flattened batch so
-    XLA lowers it to a single MXU-friendly op instead of a vmapped loop.
+    XLA lowers it to a single op instead of a vmapped loop.
     """
     batch_shape = dx.shape[:-1]
     d = dx.shape[-1]

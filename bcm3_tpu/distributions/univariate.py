@@ -1,6 +1,6 @@
 """Univariate probability distributions as pure JAX functions.
 
-TPU-native equivalent of the reference distribution zoo
+JAX equivalent of the reference distribution zoo
 (reference: src/utils/ProbabilityDistributions.h:5-44 and
 src/sampler/UnivariateMarginal.cpp) — every function is elementwise,
 broadcastable, differentiable and usable under `jit`/`vmap`.

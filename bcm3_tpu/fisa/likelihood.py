@@ -1,6 +1,6 @@
 """fISA likelihood: steady-state signaling activities vs observed data.
 
-TPU-native equivalent of the reference fISA likelihood layer
+JAX equivalent of the reference fISA likelihood layer
 (reference: src/fISA/fISALikelihood.cpp, fISAExperiment.cpp,
 fISAExperimentSingleCondition.cpp). Single-condition experiments are
 supported: per-cell-line steady-state solves (vmapped over cell lines —

@@ -1,6 +1,6 @@
 """fISA steady-state signaling network, compiled to a jittable solve.
 
-TPU-native equivalent of the reference SignalingNetwork
+JAX equivalent of the reference SignalingNetwork
 (reference: src/fISA/SignalingNetwork.cpp). The reference compiles a
 CellDesigner SBML influence graph (POSITIVE/NEGATIVE_INFLUENCE
 reactions, one reactant -> one product) into a fixed structure, orders
@@ -110,7 +110,7 @@ def _unrolled_solve(A, b):
     feedback components (component size is bounded by the reference's
     16-parent limit, SignalingNetwork.h:37-90). The generic
     jnp.linalg.solve custom call on tiny matrices inside vmapped
-    programs is the measured bottleneck on TPU (see ode/sparse_lu.py);
+    programs was a measured bottleneck (see ode/sparse_lu.py);
     the Newton matrix is I - dout/dsub + ridge, diagonally dominated
     near the root, so the no-pivot form is numerically safe (and a bad
     step only perturbs an iterate that Newton damping then corrects)."""
@@ -566,7 +566,7 @@ class SignalingNetwork:
     def calculate_multiroot(self, values, expression, preset_activities):
         """All multiroot steady-state solves, shape (M, n).
 
-        TPU-native form of the reference's multiroot Calculate overload
+        Batched form of the reference's multiroot Calculate overload
         (SignalingNetwork.cpp:599-697): each feedback component is
         root-solved from `multiroot_solves` Sobol starting points; the
         caller (the single-condition experiment) scores every solve's

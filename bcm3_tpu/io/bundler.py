@@ -1,6 +1,6 @@
 """Grouped HDF5 bundler for adaptation dumps.
 
-TPU-native equivalent of the reference NetCDFBundler
+JAX equivalent of the reference NetCDFBundler
 (reference: src/utils/NetCDFBundler.{h,cpp}) used for the
 ``sampler_adaptation.nc`` files consumed by R
 (R/load.r load.netcdf.bundler.data, examples/banana/plots.r:20-36).

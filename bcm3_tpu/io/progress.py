@@ -1,6 +1,6 @@
 """Throttled console progress indicator.
 
-TPU-native equivalent of the reference's ProgressIndicator/
+JAX equivalent of the reference's ProgressIndicator/
 ProgressIndicatorConsole (reference: src/sampler/ProgressIndicator.h,
 ProgressIndicatorConsole.cpp; wired by Sampler::Run via UpdateProgress,
 Sampler.cpp:190-201). The reference throttles console updates by a

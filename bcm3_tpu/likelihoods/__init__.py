@@ -1,6 +1,6 @@
 """Likelihood registry: string type -> pure JAX log-density factory.
 
-TPU-native equivalent of the reference factory
+JAX equivalent of the reference factory
 (reference: src/likelihoods/LikelihoodFactory.cpp:31-101). A likelihood
 is a pure function ``params -> logp`` (plus optional auxiliary outputs),
 configured from the same ``likelihood.xml`` schema the reference uses.
@@ -33,7 +33,7 @@ class Likelihood:
     model: Any = None  # backing model object (e.g. PopPKLikelihood)
     # optional natively batched evaluation `xs (B, D) -> (B,)`; samplers
     # use it instead of vmap(log_prob) when present (e.g. the PopPK
-    # Pallas interval kernel)
+    # transit kernel)
     log_prob_batched: Any = None
 
 
@@ -257,7 +257,7 @@ def _pop_pk(varset: VariableSet, attrs) -> Likelihood:
     pk = create_poppk_likelihood(varset, attrs)
     lik = Likelihood("pop_pk_trajectory", pk.log_prob, attrs=attrs)
     lik.model = pk  # expose trajectories for predict/R-bridge equivalents
-    lik.log_prob_batched = pk.log_prob_batched  # Pallas interval kernel
+    lik.log_prob_batched = pk.log_prob_batched  # fused transit kernel
     return lik
 
 

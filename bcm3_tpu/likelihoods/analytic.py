@@ -1,6 +1,6 @@
 """Analytic test likelihoods as pure JAX log-density functions.
 
-TPU-native equivalents of the reference test likelihoods
+JAX equivalent of the reference test likelihoods
 (reference: src/likelihoods/TestLikelihood{Banana,Circular,
 MultimodalGaussians,TruncatedT}.cpp, LikelihoodDummy.cpp). Each returns
 a scalar log-probability for one parameter vector and batches over

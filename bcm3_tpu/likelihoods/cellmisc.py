@@ -1,7 +1,7 @@
 """Auxiliary cell-biology likelihoods: cell-cycle marker, mitosis-time
 estimation, and the Incucyte drug-response population model.
 
-TPU-native equivalents of
+JAX equivalent of
 - reference: src/likelihoods/LikelihoodCellCycleMarker.cpp — a
   piecewise-linear cell-cycle marker signal (baseline, S-phase ramp,
   plateau ramp, post-mitosis decay) fit to one TSV track with t(nu=4)
@@ -232,8 +232,7 @@ class IncucytePopulationLikelihood:
         # sliding-ring history length: must cover the model's maximum
         # plausible delay in grid steps (delays beyond the ring clamp to
         # its oldest entry); the default covers delays up to ~ a quarter
-        # of the horizon. Gather cost scales with ring_size (v5e: 43.8k
-        # evals/s at G=96/K=16 vs 19.6k at G=256/K=64), so tighten it
+        # of the horizon. Gather cost scales with ring_size, so tighten it
         # when the delay bound is known.
         self.ring_size = ring_size
         self._ix = {name: i for i, name in enumerate(varset.names)}
@@ -347,12 +346,9 @@ class IncucytePopulationLikelihood:
 
         def solve_well(wp, wa, st, et, asize, hd):
             # Default: fixed-grid RK4 with the sliding-ring history
-            # (ode/delay.py solve_dde_ring) — the measured-fast TPU shape
-            # for this smooth, slow DDE: per-lane delayed lookups into the
-            # full history buffer lower to batched gathers that cost 6.5x
-            # the whole remaining step body (v5e, 2026-08-21: 297 evals/s
-            # round-4 adaptive -> 4.6k grid-buffer RK4 -> 19.6k ring).
-            # Accuracy matches the adaptive controller to ~2e-6 relative
+            # (ode/delay.py solve_dde_ring) for this smooth, slow DDE: it
+            # avoids per-lane delayed lookups into the full history
+            # buffer, which lower to batched gathers. Accuracy matches the adaptive controller to ~2e-6 relative
             # logp at G=256 (tests/test_small_expm.py) — far inside the
             # reference's loose incucyte tolerances (rel 1e-6/abs 1e-2,
             # LikelihoodIncucytePopulation.cpp:131) — and the trip-capped
@@ -385,8 +381,8 @@ class IncucytePopulationLikelihood:
             else:
                 # per-interval adaptive: history recording uses the
                 # UNIFORM scan index, which lowers to cheap
-                # dynamic-update-slices (measured 15x faster than the
-                # per-lane scatter of the budget form on v5e); the trip
+                # dynamic-update-slices instead of the per-lane scatter
+                # of the budget form; the trip
                 # budget per interval is small because the incucyte
                 # dynamics need ~1 accepted step per grid interval
                 res = solve_dde_adaptive(

@@ -1,6 +1,6 @@
 """Template ODE likelihood with a pluggable JAX right-hand side.
 
-TPU-native equivalent of the reference's LikelihoodODE example/template
+JAX equivalent of the reference's LikelihoodODE example/template
 (reference: src/likelihoods/LikelihoodODE.cpp:14-82): 13 inference
 variables, a 4-state ODE whose initial conditions are parameters 9-12,
 trajectories at 100 timepoints over [0, 1000], and the first state

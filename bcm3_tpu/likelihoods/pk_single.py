@@ -1,6 +1,6 @@
 """Single-patient pharmacokinetic trajectory likelihood.
 
-TPU-native equivalent of the reference single-patient PK workload
+JAX equivalent of the reference single-patient PK workload
 (reference: src/likelihoods/LikelihoodPharmacokineticTrajectory.cpp).
 It is the PopPK model restricted to one patient with the PK parameters
 sampled directly (no population-level non-centered transform,

@@ -1,13 +1,13 @@
 """User-plugin likelihood: load a log-density from external code.
 
-TPU-native equivalent of the reference DLL likelihood
+JAX equivalent of the reference DLL likelihood
 (reference: src/likelihoods/LikelihoodDLL.cpp:34-116, example at
 examples/dll_likelihood/code.cpp), which dlopens a user shared library
 exporting ``initialize_likelihood`` + ``evaluate_log_probability``.
 
 Two plugin flavors:
 
-- **Python module** (the TPU-native path): a ``.py`` file exporting
+- **Python module**: a ``.py`` file exporting
   either ``make_log_prob(variable_names) -> jittable fn`` or a plain
   ``evaluate_log_probability(values) -> float``. The former stays on
   device (jit/vmap-able); the latter is wrapped in

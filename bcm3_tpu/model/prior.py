@@ -1,6 +1,6 @@
 """Vectorized prior over a variable set, as pure JAX functions.
 
-TPU-native equivalent of the reference prior layer
+JAX equivalent of the reference prior layer
 (reference: src/sampler/Prior.cpp:21-66, PriorIndependence.cpp,
 UnivariateMarginal.cpp). Instead of one C++ object per variable
 dispatching on an enum, the prior is encoded as parallel parameter
@@ -228,8 +228,8 @@ class Prior:
         # FINITE for any x in the batch. A mere epsilon floor is not
         # enough: (x - 0)/tiny overflows to inf in float32, and reverse
         # mode then computes 0 * inf = NaN through the select — a NaN
-        # gradient with a perfectly finite primal. (This broke NUTS on
-        # TPU f32 while every x64 CPU run was fine; the old 1e-300 floor
+        # gradient with a perfectly finite primal. (This broke NUTS in
+        # f32 while every x64 CPU run was fine; the old 1e-300 floor
         # additionally underflowed to 0.0 in f32.)
         tiny = jnp.asarray(jnp.finfo(x.dtype).tiny, x.dtype)
 

@@ -1,6 +1,6 @@
 """Variable sets loaded from the reference `prior.xml` schema.
 
-TPU-native equivalent of the reference VariableSet
+JAX equivalent of the reference VariableSet
 (reference: src/sampler/VariableSet.cpp:16-95). Supports the
 ``<prior>``/``<variableset>`` root elements, the ``repeat`` attribute
 (expanding to ``name_0 .. name_{k-1}``) and the output transforms

@@ -1,6 +1,6 @@
 """Fixed-grid delay-ODE integrator (method of steps, batched).
 
-TPU-native replacement for the reference's CVODE delay variant
+JAX replacement for the reference's CVODE delay variant
 (reference: src/odecommon/CVODESolverDelay.{h,cpp}), which keeps the
 solution history inside the solver and passes interpolated delayed
 states into the derivative callback. Adaptive BDF with a dynamic
@@ -55,8 +55,8 @@ def solve_dde_grid(
         # at most three consecutive history rows cover every linear
         # interpolation. ONE dynamic_slice per step replaces eight
         # per-stage row gathers — under vmap the delay is a per-lane
-        # traced value, and batched row gathers on TPU were measured at
-        # 6.5x the cost of the whole remaining step body.
+        # traced value, and batched row gathers can cost more than the
+        # whole remaining step body.
         pos_lo = (t - delay - t0) / h
         filled = (i - 1).astype(dtype)
         base = jnp.clip(jnp.floor(pos_lo).astype(jnp.int32), 0, G - 3)
@@ -234,11 +234,9 @@ def solve_dde_ring(
 ) -> DDEResult:
     """Fixed-grid RK4 method of steps with a SLIDING-RING history.
 
-    The fast TPU lowering of `solve_dde_grid`: per-lane delayed lookups
-    into the full (G, n) history buffer lower to batched gathers, which
-    measured ~6x the cost of the entire remaining step body on v5e
-    (lane-uniform indices ran 29.6k evals/s vs 4.6k with per-lane
-    gathers at the same arithmetic). Here the carry holds only the last
+    A gather-free lowering of `solve_dde_grid`: per-lane delayed lookups
+    into the full (G, n) history buffer lower to batched gathers. Here the
+    carry holds only the last
     `ring_size` grid rows, shifted by one each step (static slice +
     concat — no indexed writes), the trajectory is emitted as a scan
     OUTPUT (no (G, n) carry at all), and the delayed lookup interpolates
@@ -315,9 +313,8 @@ def solve_dde_budget(
 
     The per-interval form runs `(G-1) * trips_per_interval` sequential
     masked loop bodies regardless of how many adaptive steps the error
-    controller actually needs (~100 for the incucyte dynamics); on TPU
-    the sequential body count is the binding resource (issue latency,
-    plus the history-buffer traffic each body carries). This form is ONE
+    controller actually needs (~100 for the incucyte dynamics), and each
+    body carries the history-buffer traffic. This form is ONE
     static `lax.fori_loop` of `total_trips` embedded BS3(2) steps with a
     grid-stop pointer per lane — the DDE twin of
     `ode/rosenbrock.py solve_at_times_stiff_budget`. Steps are clipped

@@ -1,6 +1,6 @@
 """Batched adaptive Dormand-Prince RK5(4) integrator in JAX.
 
-TPU-native replacement for the reference explicit solver
+JAX replacement for the reference explicit solver
 (reference: src/odecommon/ODESolverDP5.{h,cpp}) and, for non-stiff
 workloads, for the CVODE wrapper's role
 (reference: src/odecommon/ODESolverCVODE.cpp). Design differences that
@@ -66,8 +66,12 @@ def _step(f, t, y, dt, args):
             yi = yi + dt * _A[i, j] * ks[j]
         ks.append(f(ti, yi, args))
     k = jnp.stack(ks)  # (7, n)
-    y5 = y + dt * jnp.tensordot(jnp.asarray(_B5, dtype=y.dtype), k, axes=1)
-    y4 = y + dt * jnp.tensordot(jnp.asarray(_B4, dtype=y.dtype), k, axes=1)
+    y5 = y + dt * jnp.tensordot(
+        jnp.asarray(_B5, dtype=y.dtype), k, axes=1, precision=jax.lax.Precision.HIGHEST
+    )
+    y4 = y + dt * jnp.tensordot(
+        jnp.asarray(_B4, dtype=y.dtype), k, axes=1, precision=jax.lax.Precision.HIGHEST
+    )
     return y5, y5 - y4
 
 
@@ -123,10 +127,9 @@ def _integrate_segment_fori(f, t0, t1, y0, dt0, args, rtol, atol, trips, min_dt=
     max-steps soft-fail (ODESolverCVODE.cpp:322-445).
 
     Why it exists: under vmap a while_loop runs every lane until the LAST
-    lane converges, and measured on TPU the masked-while lowering inside a
-    sampling scan is an order of magnitude slower than the same math as a
-    static fori_loop (22x on the PopPK transit workload). Static trip
-    counts are the TPU-native shape for bounded adaptive work.
+    lane converges, and a masked while_loop inside a sampling scan
+    evaluates its predicate on every trip; a static trip count bounds
+    the adaptive work instead.
     """
 
     def body(i, carry):
@@ -250,7 +253,7 @@ def solve_at_times_budget(
     applied at each stop after recording), but structured as ONE static
     `lax.fori_loop` of `total_trips` adaptive steps with a stop-time
     pointer carried per lane, instead of scan-over-segments x
-    bounded-loop-per-segment. Two wins for batched TPU execution:
+    bounded-loop-per-segment. Two wins for batched execution:
 
     - work is bounded by what the trajectory actually needs (a tight
       whole-trajectory budget) rather than segments x per-segment budget,
@@ -294,9 +297,8 @@ def solve_at_times_budget(
         seg_c = jnp.minimum(seg, S - 1)
         # one-hot gather/scatter instead of per-lane dynamic indexing:
         # under vmap, dynamic_slice/dynamic_update_slice with traced
-        # per-lane indices lowers to scalar-core loops on TPU (measured
-        # 14s/call at 131k lanes); masked select over the S axis stays
-        # fully vectorized
+        # per-lane indices lowers to gathers and scatters; a masked
+        # select over the S axis stays fully vectorized
         onehot = iota_s == seg_c
         t1 = jnp.sum(jnp.where(onehot, stop_times, 0.0))
         active = (seg < S) & ok

@@ -1,6 +1,6 @@
 """Static-sparsity-pattern stage solver for batched stiff integration.
 
-The TPU-native counterpart of the reference's sparsity-exploiting linear
+The JAX counterpart of the reference's sparsity-exploiting linear
 algebra for stiff ODE models (reference:
 src/utils/EigenPartialPivLUSomewhatSparse.h:1-108 — a partial-pivot LU
 that skips structurally-zero columns, and the CVODE sparse backend

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for hot compute paths."""
+"""Hand-written GPU kernels for hot compute paths (Pallas, Triton route)."""

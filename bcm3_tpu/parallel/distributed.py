@@ -2,19 +2,19 @@
 
 The reference has no distributed backend at all — its parallelism is a
 single-process thread pool (SURVEY.md §2.12; reference:
-src/utils/TaskManager.h). The TPU-native replacement mandated by the
-survey is the `jax.distributed` multi-host runtime: every host runs the
-same program, `initialize()` wires the hosts into one JAX process group,
-and the chain population then shards over the global device mesh exactly
-as it does over a single host's devices (`bcm3_tpu/parallel/mesh.py`) —
-replica-exchange permutations ride ICI within a slice and DCN across
-slices, with no code changes in the sampler.
+src/utils/TaskManager.h). The replacement is the `jax.distributed`
+multi-host runtime: every host runs the same program, `initialize()`
+wires the hosts into one JAX process group, and the chain population then
+shards over the global device mesh exactly as it does over a single
+host's devices (`bcm3_tpu/parallel/mesh.py`), with no code changes in the
+sampler.
 
-Typical multi-host launch (same command on every host):
+Typical multi-host launch (same command on every host, with its own
+process id):
 
     python -c "
     from bcm3_tpu.parallel.distributed import initialize
-    initialize()  # env-driven on TPU pods (no args needed)
+    initialize('host0:12421', num_processes, process_id)
     ... build sampler with PTConfig(shard_over_devices=True) ...
     "
 
@@ -42,10 +42,9 @@ def initialize(
 ) -> None:
     """Initialize the jax.distributed runtime.
 
-    On Cloud TPU pods all arguments are discovered from the environment;
-    elsewhere pass coordinator_address ("host:port" of process 0),
-    num_processes and process_id explicitly. Safe to call when already
-    initialized (no-op with a warning)."""
+    Pass coordinator_address ("host:port" of process 0), num_processes
+    and process_id explicitly. Safe to call when already initialized
+    (no-op with a warning)."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

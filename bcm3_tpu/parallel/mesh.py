@@ -1,10 +1,10 @@
 """Device-mesh helpers: chain-axis sharding for the PT sampler.
 
-TPU-native replacement for the reference's thread-level chain
+JAX replacement for the reference's thread-level chain
 parallelism (reference: src/utils/TaskManager.h, SamplerPT.cpp:308-319):
 the chain population is a stacked array sharded over a
 `jax.sharding.Mesh` axis; the even/odd replica-exchange permutation
-lowers to XLA collective-permutes over ICI, and everything else is
+lowers to XLA collective-permutes between devices, and everything else is
 embarrassingly chain-parallel.
 """
 

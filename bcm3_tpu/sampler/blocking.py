@@ -1,6 +1,6 @@
 """Variable blocking strategies.
 
-TPU-native equivalent of the reference blocking hierarchy
+JAX equivalent of the reference blocking hierarchy
 (reference: src/sampler/BlockingStrategy*.cpp). Blocks are computed on
 the host at adaptation boundaries from the device sample history and
 become the static structure of the next jitted sampling segment.

@@ -1,6 +1,6 @@
 """Sampler factory: ``sampler.type`` string -> sampler instance.
 
-TPU-native equivalent of the reference factory
+JAX equivalent of the reference factory
 (reference: src/sampler/SamplerFactory.cpp:22-43).
 """
 

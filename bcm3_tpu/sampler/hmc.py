@@ -1,6 +1,6 @@
 """Hamiltonian Monte Carlo sampler with dual-averaging adaptation.
 
-A TPU-native sampler backend beyond the reference's PT-MH/IS pair — the
+A sampler backend beyond the reference's PT-MH/IS pair — the
 BASELINE north star asks for gradient-based backends behind the same
 sampler interface (the reference has none; its samplers are
 derivative-free, SamplerFactory.cpp:22-26). JAX provides exact

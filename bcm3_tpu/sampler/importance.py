@@ -1,6 +1,6 @@
 """Prior-importance sampler.
 
-TPU-native equivalent of the reference importance sampler
+JAX equivalent of the reference importance sampler
 (reference: src/sampler/SamplerIS.cpp:47-90). The reference draws one
 prior sample at a time on the host and evaluates the likelihood
 serially; here draws are batched on device — one jitted
@@ -37,7 +37,7 @@ class ISConfig:
     num_samples: int = 2500
     use_every_nth: int = 1
     seed: int = 0
-    batch_size: int = 1024  # device batch per draw round (TPU-native knob)
+    batch_size: int = 1024  # device batch per draw round
     max_rounds: int = 10_000
 
 

@@ -1,6 +1,6 @@
 """Device-side adaptive proposals for the PT sampler.
 
-TPU-native re-design of the reference proposal hierarchy
+JAX re-design of the reference proposal hierarchy
 (reference: src/sampler/Proposal.cpp, ProposalGaussianMixture.cpp,
 ProposalGlobalCovariance.cpp). The reference holds one C++ object per
 (chain, block); here a proposal for one variable block is a *stacked
@@ -43,6 +43,11 @@ from jax.scipy.special import logsumexp
 SCALING_EMA_PERIOD = 1000.0
 SCALING_LEARNING_RATE = 0.05
 
+# every f32 contraction runs at full float32 precision: a GPU may
+# otherwise run it in TF32 (about three decimal digits), and the MH
+# acceptance ratio is computed from these
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 # update rules
 RULE_GMM = 0  # ProposalGaussianMixture::Update
 RULE_BASE = 1  # Proposal::Update (used by global_covariance)
@@ -84,8 +89,8 @@ class BlockProposal:
     means: jax.Array  # (C, K, d)
     chols: jax.Array  # (C, K, d, d) lower
     # chols^-1, precomputed on the host at adaptation time so Mahalanobis
-    # terms are matmuls on the MXU instead of batched triangular solves
-    # (trsm is sequential over d and maps poorly to the TPU vector unit)
+    # terms are matmuls instead of batched triangular solves (trsm is
+    # sequential over d)
     inv_chols: jax.Array  # (C, K, d, d) lower
     log_weights: jax.Array  # (C, K), -inf on padding
     log_c: jax.Array  # (C, K) log MVN normalization constants
@@ -142,7 +147,7 @@ def _component_log_pdfs(prop: BlockProposal, x):
     prop fields here have shapes (K, d) / (K, d, d); x is (d,).
     """
     d = x - prop.means  # (K, d)
-    s = jnp.einsum("kij,kj->ki", prop.inv_chols, d)
+    s = jnp.einsum("kij,kj->ki", prop.inv_chols, d, precision=_HIGHEST)
     return prop.log_c - 0.5 * jnp.sum(s * s, axis=-1)  # (K,)
 
 
@@ -201,7 +206,7 @@ def propose(prop: BlockProposal, x_block, lower, upper, key):
     selected = jax.random.categorical(kk, log_resp)
 
     z = jax.random.normal(kz, x_block.shape, dtype=x_block.dtype)
-    step = prop.chols[selected] @ z
+    step = jnp.matmul(prop.chols[selected], z, precision=_HIGHEST)
 
     if prop.t_dof > 0.0:
         # reference quirk preserved: w ~ Gamma(nu/2, SCALE=nu/2)
@@ -227,7 +232,7 @@ def mh_log_ratio(prop: BlockProposal, x_block, new_block):
     log_rev_resp = responsibilities_log(prop, new_block)
 
     v = (new_block - x_block)[None, :] / prop.scales[:, None]  # (K, d)
-    s_fwd = jnp.einsum("kij,kj->ki", prop.inv_chols, v)
+    s_fwd = jnp.einsum("kij,kj->ki", prop.inv_chols, v, precision=_HIGHEST)
     # the Gaussian is symmetric in v -> forward and reverse Mahalanobis terms
     # are identical; only the responsibilities differ
     quad = -0.5 * jnp.sum(s_fwd * s_fwd, axis=-1)
@@ -246,8 +251,8 @@ def mh_log_ratio(prop: BlockProposal, x_block, new_block):
 # intermediate — measured 87 GB at 65,536 chains x d=520 (compile-time
 # OOM), and ~100 MB of pure HBM traffic per mutate block even at d=20.
 # These kernels keep the factors unbatched: the ensemble axis enters as
-# the FREE dimension of one (l,k)-batched matmul (the MXU-friendly
-# form), so nothing of shape (C, K, d, d) ever exists. Per-lane RNG
+# the FREE dimension of one (l,k)-batched matmul, so nothing of shape
+# (C, K, d, d) ever exists. Per-lane RNG
 # keeps the exact split structure of the per-chain kernels, so the
 # random stream is unchanged.
 
@@ -255,7 +260,7 @@ def mh_log_ratio(prop: BlockProposal, x_block, new_block):
 def _ensemble_log_pdfs(prop: BlockProposal, x_el):
     """(E, L, K) log N(x; mean_lk, Sigma_lk); mixture fields at (L, ...)."""
     diff = x_el[:, :, None, :] - prop.means[None]  # (E, L, K, d)
-    s = jnp.einsum("lkij,elkj->elki", prop.inv_chols, diff)
+    s = jnp.einsum("lkij,elkj->elki", prop.inv_chols, diff, precision=_HIGHEST)
     return prop.log_c[None] - 0.5 * jnp.sum(s * s, axis=-1)
 
 
@@ -297,9 +302,10 @@ def propose_ensemble(prop: BlockProposal, x_el, lower, upper, keys_el):
     # steps for every component via one shared-matrix matmul, then a
     # one-hot pick — K x the matvec FLOPs (K <= 13) instead of a
     # per-lane (C, d, d) gather materialization
-    steps = jnp.einsum("lkij,elj->elki", prop.chols, z)  # (E, L, K, d)
+    # (E, L, K, d)
+    steps = jnp.einsum("lkij,elj->elki", prop.chols, z, precision=_HIGHEST)
     onehot = jax.nn.one_hot(sel, K, dtype=x_el.dtype)  # (E, L, K)
-    step = jnp.einsum("elk,elki->eli", onehot, steps)
+    step = jnp.einsum("elk,elki->eli", onehot, steps, precision=_HIGHEST)
     scales_el = prop.scales.reshape(E, L, K)
     scale_sel = jnp.sum(onehot * scales_el, axis=-1)  # (E, L)
 
@@ -324,7 +330,7 @@ def mh_log_ratio_ensemble(prop: BlockProposal, x_el, new_el,
 
     scales_el = prop.scales.reshape(E, L, K)
     v = (new_el - x_el)[:, :, None, :] / scales_el[..., None]  # (E, L, K, d)
-    s = jnp.einsum("lkij,elkj->elki", prop.inv_chols, v)
+    s = jnp.einsum("lkij,elkj->elki", prop.inv_chols, v, precision=_HIGHEST)
     quad = -0.5 * jnp.sum(s * s, axis=-1)
     base = -2.0 * jnp.log(scales_el) + prop.log_c[None] + quad
     fwd = logsumexp(base + log_fwd_resp, axis=-1)
@@ -362,9 +368,10 @@ def propose_clustered_ensemble(
 
     z, t_scale = jax.vmap(jax.vmap(draw))(keys_el)
 
-    steps = jnp.einsum("lkij,elj->elki", prop.chols, z)  # (E, L, K, d)
+    # (E, L, K, d)
+    steps = jnp.einsum("lkij,elj->elki", prop.chols, z, precision=_HIGHEST)
     onehot = jax.nn.one_hot(selected, K, dtype=x_el.dtype)  # (E, L, K)
-    step = jnp.einsum("elk,elki->eli", onehot, steps)
+    step = jnp.einsum("elk,elki->eli", onehot, steps, precision=_HIGHEST)
     scales_el = prop.scales.reshape(E, L, K)
     scale_sel = jnp.sum(onehot * scales_el, axis=-1)  # (E, L)
 
@@ -387,7 +394,7 @@ def mh_log_ratio_clustered_ensemble(
 
     scales_el = prop.scales.reshape(E, L, K)
     v = (new_el - x_el)[:, :, None, :] / scales_el[..., None]  # (E, L, K, d)
-    s = jnp.einsum("lkij,elkj->elki", prop.inv_chols, v)
+    s = jnp.einsum("lkij,elkj->elki", prop.inv_chols, v, precision=_HIGHEST)
     quad = -0.5 * jnp.sum(s * s, axis=-1)
     base = -2.0 * jnp.log(scales_el) + prop.log_c[None] + quad  # (E, L, K)
 
@@ -407,7 +414,7 @@ def propose_clustered(prop: BlockProposal, x_block, cluster, lower, upper, key):
     selected = jnp.clip(cluster, 0, prop.means.shape[0] - 1)
 
     z = jax.random.normal(kz, x_block.shape, dtype=x_block.dtype)
-    step = prop.chols[selected] @ z
+    step = jnp.matmul(prop.chols[selected], z, precision=_HIGHEST)
 
     if prop.t_dof > 0.0:
         # same Gamma(nu/2, scale=nu/2) mixing quirk as the mixture proposal
@@ -434,7 +441,7 @@ def mh_log_ratio_clustered(prop: BlockProposal, x_block, new_block, cur_cluster,
 
     def comp_logp(comp, v):
         vv = v / prop.scales[comp]
-        s = prop.inv_chols[comp] @ vv
+        s = jnp.matmul(prop.inv_chols[comp], vv, precision=_HIGHEST)
         return -2.0 * jnp.log(prop.scales[comp]) + prop.log_c[comp] - 0.5 * jnp.sum(s * s)
 
     diff = new_block - x_block

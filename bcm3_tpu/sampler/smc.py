@@ -1,6 +1,6 @@
 """Adaptive tempered Sequential Monte Carlo sampler.
 
-A TPU-native sampler backend beyond the reference's PT-MH/IS pair
+A sampler backend beyond the reference's PT-MH/IS pair
 (BASELINE north star). Where parallel tempering runs a fixed ladder of
 chains through time, SMC moves one PARTICLE POPULATION through an
 adaptively chosen temperature schedule — ideally suited to the chip:
@@ -106,7 +106,7 @@ class SamplerSMC:
             """One vmapped random-walk MH sweep at temperature beta."""
             kz, ku = jax.random.split(key)
             z = jax.random.normal(kz, x.shape)
-            prop = x + z @ chol_scaled.T
+            prop = x + jnp.matmul(z, chol_scaled.T, precision=jax.lax.Precision.HIGHEST)
             # reflect on bounds like the reference proposals
             from bcm3_tpu.sampler.proposal import reflect_on_bounds
 

@@ -1,6 +1,6 @@
 """Density-aware spectral clustering of the sample history.
 
-TPU-native equivalent of the reference's SampleHistoryClustering
+JAX equivalent of the reference's SampleHistoryClustering
 (reference: src/sampler/SampleHistoryClustering.cpp). The *fit* runs on
 the host at adaptation boundaries (eigendecomposition + k-means of at
 most ``max_samples`` points is tiny); the *out-of-sample assignment* —
@@ -8,7 +8,7 @@ which the reference runs per proposal inside the sampling loop
 (SampleHistoryClustering.cpp GetSampleCluster:244-305) — is expressed
 as a jittable, vmappable kernel over device arrays so the clustered
 proposal can assign the whole chain population in one batched
-computation (distance matrix = one MXU matmul).
+computation (distance matrix = one matmul).
 
 Algorithm (faithful to the reference):
 1. scale variables by their history standard deviation;
@@ -82,11 +82,14 @@ def assign(assigner: ClusterAssigner, x):
     n = dists.shape[0]
     indicator = jnp.zeros((n,), dtype=assigner.nn_bitset.dtype)
     indicator = indicator.at[nn_idx[: assigner.nn2]].set(1.0)
-    cnns = assigner.nn_bitset @ indicator  # (n,)
+    hi = jax.lax.Precision.HIGHEST  # full f32 (no TF32) on a GPU
+    cnns = jnp.matmul(assigner.nn_bitset, indicator, precision=hi)  # (n,)
 
     B = jnp.exp(-dists / (scale * assigner.sample_scale * (cnns + 1.0)))
-    f = B @ assigner.spectral  # (k,)
-    return jnp.argmax(assigner.centroids @ f).astype(jnp.int32)
+    f = jnp.matmul(B, assigner.spectral, precision=hi)  # (k,)
+    return jnp.argmax(
+        jnp.matmul(assigner.centroids, f, precision=hi)
+    ).astype(jnp.int32)
 
 
 def assign_batch(assigner: ClusterAssigner, xs):

@@ -1,6 +1,6 @@
 """Automatic differentiation variational inference (mean-field ADVI).
 
-A TPU-native sampler backend beyond the reference's PT-MH/IS pair
+A sampler backend beyond the reference's PT-MH/IS pair
 (BASELINE north star; the reference has no variational method). The
 posterior is approximated with a diagonal Gaussian in the unbounded
 reparametrized space (the same bounded->unbounded transforms as the HMC

@@ -1,6 +1,6 @@
 """SBML model: species classification + jittable RHS construction.
 
-TPU-native equivalent of the reference SBMLModel
+JAX equivalent of the reference SBMLModel
 (reference: src/sbml/SBMLModel.cpp). Faithfully reproduced structure:
 
 - species split into ODE-integrated vs constant: a species that is
@@ -181,10 +181,10 @@ class SBMLModel:
                     S[self.species_index[sid], j] -= st
 
         # static sparse stoichiometry application instead of `S @ rates`:
-        # a matmul lowers to bf16 MXU multiplies under batching on TPU,
-        # and the resulting ~1e-3-relative RHS noise makes adaptive error
-        # control at rtol 1e-6 impossible (measured: every vmapped cellpop
-        # integration soft-failed). The matrix is tiny and mostly +/-1, so
+        # a matmul may run at reduced precision (bf16 or TF32 passes),
+        # and ~1e-3-relative RHS noise makes adaptive error control at
+        # rtol 1e-6 impossible (every vmapped cellpop integration
+        # soft-failed that way). The matrix is tiny and mostly +/-1, so
         # the unrolled multiply-add form is both exact f32 and faster.
         terms = [
             [(j, float(S[i, j])) for j in range(R) if S[i, j] != 0.0]

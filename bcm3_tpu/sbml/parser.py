@@ -1,6 +1,6 @@
 """SBML document parser (XML + MathML subset + CellDesigner annotations).
 
-TPU-native replacement for the reference's libsbml-backed document layer
+JAX replacement for the reference's libsbml-backed document layer
 (reference: src/sbml/SBMLModel.cpp LoadSBML:47-130, SBMLSpecies.cpp,
 SBMLReaction.cpp, SBMLAssignmentRule.cpp, and the vendored libsbml in
 dependencies/). libsbml is only used by the reference to read the XML

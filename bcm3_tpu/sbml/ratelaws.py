@@ -1,6 +1,6 @@
 """Rate-law AST -> jittable JAX expression compiler.
 
-TPU-native replacement for the reference's dual interpret/codegen path
+JAX replacement for the reference's dual interpret/codegen path
 (reference: src/sbml/SBMLRatelaws.cpp: the Evaluate virtuals interpret
 the AST per CVODE step; GenerateEquation emits C++ source compiled via
 cmake and dlopen'd, SolverCodeGenerator.cpp:32-120). Under XLA neither

@@ -1,6 +1,6 @@
 """Gaussian mixture model fitting on the host (numpy, float64).
 
-TPU-native split of the reference GMM (reference: src/stats/GMM.cpp):
+Split of the reference GMM (reference: src/stats/GMM.cpp):
 fitting runs on the host at the sampler's adaptation boundary (it is a
 tiny, latency-bound EM on at most a few thousand samples, executed once
 or twice per run), while *evaluation* (responsibilities, densities,

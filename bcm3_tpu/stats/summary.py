@@ -1,6 +1,6 @@
 """Summary statistics (host numpy + device jnp variants).
 
-TPU-native equivalent of the reference summary-stat helpers
+JAX equivalent of the reference summary-stat helpers
 (reference: src/utils/SummaryStats.cpp). The autocorrelation convention
 matches the reference: mean of lagged cross-products over (N - lag)
 terms, normalized by the (n-1)-denominator sample variance.

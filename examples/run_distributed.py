@@ -12,8 +12,10 @@ Single-host multi-process demo (CPU):
     # terminal 2
     JAX_PLATFORMS=cpu python examples/run_distributed.py 1 2
 
-On a real TPU pod, run it once per host with no arguments —
-`initialize()` discovers the topology from the environment.
+On several hosts, run it once per host with the process id, the
+process count and the coordinator's address (process 0's host:port):
+
+    python examples/run_distributed.py <pid> <nproc> <host:port>
 
 Each process writes only its own ensemble shard
 (`samples_shard<p>.npz`); merge them with
@@ -27,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if len(sys.argv) > 1:  # explicit local demo topology
+if len(sys.argv) == 3:  # local CPU demo topology
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 4)
 
@@ -37,22 +39,23 @@ from bcm3_tpu.parallel.distributed import initialize, is_primary
 
 
 def main():
-    if len(sys.argv) > 1:
-        pid, nproc = int(sys.argv[1]), int(sys.argv[2])
-        initialize("localhost:12421", nproc, pid)
-    else:
-        initialize()  # TPU pod: env-driven
-        pid = jax.process_index()
+    pid, nproc = int(sys.argv[1]), int(sys.argv[2])
+    coordinator = sys.argv[3] if len(sys.argv) > 3 else "localhost:12421"
+    initialize(coordinator, nproc, pid)
 
     from bcm3_tpu.likelihoods import create_likelihood
     from bcm3_tpu.model.prior import Prior
     from bcm3_tpu.model.variables import VariableSet
     from bcm3_tpu.sampler import PTConfig, SamplerPT
 
-    ex = "/root/reference/examples/banana"
-    varset = VariableSet.from_xml(f"{ex}/prior.xml")
-    prior = Prior.from_xml(f"{ex}/prior.xml", varset)
-    lik = create_likelihood(f"{ex}/likelihood.xml", varset)
+    import tempfile
+
+    from bcm3_tpu.example_files import write_banana_example
+
+    prior_xml, lik_xml = write_banana_example(tempfile.mkdtemp(prefix="banana_"))
+    varset = VariableSet.from_xml(prior_xml)
+    prior = Prior.from_xml(prior_xml, varset)
+    lik = create_likelihood(lik_xml, varset)
 
     cfg = PTConfig(
         num_samples=500,

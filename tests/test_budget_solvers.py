@@ -1,6 +1,6 @@
 """Whole-trajectory step-budget integrators (ode/dp5.py, ode/rosenbrock.py).
 
-These are the TPU-native lowering of adaptive integration under the
+These are the batched-device lowering of adaptive integration under the
 sampler (static fori trip counts instead of data-dependent while loops;
 see the module docstrings for measurements). The tests pin:
 - agreement with the scan-over-segments adaptive solvers,

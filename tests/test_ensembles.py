@@ -181,8 +181,8 @@ def test_emit_fixed_only_bit_identical_t1():
 
 
 def test_emit_dtype_rounds_identical_stream():
-    """Reduced-precision emission (the bandwidth lever for tunneled
-    devices, see tools/emit_gap_probe.py) only rounds the emitted copy:
+    """Reduced-precision emission (a device->host bandwidth lever) only
+    rounds the emitted copy:
     the sampled stream is dtype-independent, so the float16 store must
     equal the float32 store cast to float16, element for element."""
     import jax.numpy as jnp

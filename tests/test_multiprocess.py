@@ -1,8 +1,8 @@
 """Real multi-process distributed execution (jax.distributed, 2 processes).
 
 The reference's only parallelism is a single-process thread pool
-(SURVEY §2.12; reference: src/utils/TaskManager.h); the TPU-native
-mandate is a jax.distributed multi-host runtime. This test launches two
+(SURVEY §2.12; reference: src/utils/TaskManager.h); the replacement
+is a jax.distributed multi-host runtime. This test launches two
 OS processes, each with 4 virtual CPU devices, forming one 8-device
 global mesh; both run the same sharded banana PT inference (replica
 exchange = cross-process collective permutes, proposal adaptation =

@@ -210,3 +210,40 @@ def test_poppk_file_roundtrip(tmp_path, synth):
         float(lik.log_prob(jnp.asarray(values))),
         rtol=1e-12,
     )
+
+
+def test_pkdata_roundtrip_without_h5py(tmp_path, monkeypatch):
+    """Without h5py, save writes NetCDF-3 with <trial>_<name> variables and
+    load reads it back through the scipy fallback."""
+    import sys
+
+    from bcm3_tpu.likelihoods.poppk import PopPKTrial
+
+    trial, _ = synthesize_trial(num_patients=3, num_timepoints=6, seed=2)
+    monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py fails
+    path = str(tmp_path / "pk.nc")
+    trial.save(path, "T1", "lapatinib")
+    with open(path, "rb") as f:
+        assert f.read(3) == b"CDF"  # NetCDF-3 magic
+    back = PopPKTrial.load(path, "T1", "lapatinib")
+    for name in trial.__dataclass_fields__:
+        a, b = np.asarray(getattr(trial, name)), np.asarray(getattr(back, name))
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_main_path_imports_without_h5py():
+    """The sampling path (XML -> create_likelihood -> SamplerPT) and the
+    posterior summaries import without h5py, which only output.nc needs."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['h5py'] = None\n"
+        "import bcm3_tpu.analysis, bcm3_tpu.likelihoods, bcm3_tpu.sampler\n"
+        "import bcm3_tpu.model.prior, bcm3_tpu.model.variables\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

@@ -133,7 +133,7 @@ def test_prior_gradients_finite_float32():
     prior draw: masked non-member family branches must use neutral
     substituted parameters, because an epsilon floor lets (x-0)/tiny
     overflow to inf and 0*inf = NaN leaks through the select even with a
-    finite primal (this broke NUTS on TPU f32; x64 hid it)."""
+    finite primal (this broke NUTS in f32; x64 hid it)."""
     import tempfile
 
     import jax

@@ -12,10 +12,9 @@ from bcm3_tpu.sampler import PTConfig, SamplerPT
 REF = "/root/reference/examples"
 
 
-@pytest.mark.skipif(
-    len(jax.devices()) < 2, reason="needs a multi-device mesh"
-)
 def test_sharded_run_matches_unsharded():
+    if len(jax.devices()) < 2:
+        pytest.skip("needs a multi-device mesh")
     varset = VariableSet.from_xml(f"{REF}/banana/prior.xml")
     prior = Prior.from_xml(f"{REF}/banana/prior.xml", varset)
     lik = create_likelihood(f"{REF}/banana/likelihood.xml", varset)

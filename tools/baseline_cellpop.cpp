@@ -27,7 +27,7 @@
 //     population mean (DataLikelihoodTimeCoursePopulationAverage.cpp);
 //   matched: per-cell Hungarian minimum-cost matching of observed traces
 //     to simulated cell traces (DataLikelihoodTimeCourse.cpp:187-355),
-//     solved by the same JV LAP algorithm the TPU path uses
+//     solved by the same JV LAP algorithm the JAX path uses
 //     (native/lap.cpp; link both files together).
 //
 // Usage: baseline_cellpop <n_evals> <n_threads> [max_cells] [initial]
@@ -101,7 +101,7 @@ static inline void jac(const Model& m, const CellParams& p, const double* y,
     }
 }
 
-// RODAS3 tableau (KPP ros_Rodas3; public literature, same as the TPU path)
+// RODAS3 tableau (KPP ros_Rodas3; public literature, same as the JAX path)
 static const double GAMMA = 0.5;
 static const double A32 = 2.0, A41 = 2.0, A43 = 1.0;
 static const double C21 = 4.0, C31 = 1.0, C32 = -1.0;

@@ -7,8 +7,7 @@ The reference has no distributed execution to compare against
 
 Weak scaling: the ensemble count grows with the device count, so each
 device carries a constant workload; efficiency = rate_N / (N * rate_1).
-On real multi-chip TPU hardware the mesh axis rides ICI; in this
-environment only one chip is available, so by default the harness runs
+On several GPUs the mesh axis rides NVLink; by default the harness runs
 on a virtual CPU device mesh (`--devices 1 2 4 8`) — virtual devices
 share the same physical cores, so CPU numbers validate the *harness and
 sharding correctness*, not real interconnect scaling.
@@ -55,10 +54,14 @@ def main():
 
     import numpy as np
 
-    ref = "/root/reference/examples/banana"
-    varset = VariableSet.from_xml(f"{ref}/prior.xml")
-    prior = Prior.from_xml(f"{ref}/prior.xml", varset)
-    lik = create_likelihood(f"{ref}/likelihood.xml", varset)
+    import tempfile
+
+    from bcm3_tpu.example_files import write_banana_example
+
+    prior_xml, lik_xml = write_banana_example(tempfile.mkdtemp(prefix="banana_"))
+    varset = VariableSet.from_xml(prior_xml)
+    prior = Prior.from_xml(prior_xml, varset)
+    lik = create_likelihood(lik_xml, varset)
 
     avail = len(jax.devices())
     results = []

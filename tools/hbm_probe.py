@@ -17,11 +17,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from bcm3_tpu.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import numpy as np
 

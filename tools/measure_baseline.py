@@ -10,6 +10,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -22,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(num_evals: int = 2000):
     trial, truth = synthesize_trial(num_patients=16, num_timepoints=24, seed=42)
-    data_file = "/tmp/bcm3_baseline_trial.txt"
+    data_file = os.path.join(tempfile.gettempdir(), "bcm3_baseline_trial.txt")
     with open(data_file, "w") as f:
         P, T = trial.num_patients, len(trial.time)
         f.write(f"{P} {T}\n")
@@ -39,7 +40,7 @@ def main(num_evals: int = 2000):
         for j in range(P):
             f.write(" ".join(str(int(v)) for v in trial.interruptions[j]) + "\n")
 
-    exe = "/tmp/baseline_surrogate"
+    exe = os.path.join(tempfile.gettempdir(), "baseline_surrogate")
     subprocess.run(
         [
             "g++",
@@ -66,7 +67,7 @@ def main(num_evals: int = 2000):
 
     # cellpop anchor: dividing stiff cells, RODAS3 + analytic Jacobian
     # (see tools/baseline_cellpop.cpp; same model as tools/bench_cellpop.py)
-    exe_cp = "/tmp/baseline_cellpop"
+    exe_cp = os.path.join(tempfile.gettempdir(), "baseline_cellpop")
     subprocess.run(
         [
             "g++", "-O3", "-march=native", "-std=c++17",
@@ -86,7 +87,7 @@ def main(num_evals: int = 2000):
     # sampler-engine anchor: reference-style PT-GMM loop on the banana
     # example (tools/baseline_banana.cpp) — isolates the engine ratio
     # from the batched-ODE wins
-    exe_bn = "/tmp/baseline_banana"
+    exe_bn = os.path.join(tempfile.gettempdir(), "baseline_banana")
     subprocess.run(
         [
             "g++", "-O3", "-march=native", "-std=c++17",
